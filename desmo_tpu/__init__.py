@@ -1,4 +1,4 @@
-"""desmo_tpu — a TPU-native framework for Decomposed Sparse Modal Optimization.
+"""desmo_tpu — a JAX framework for Decomposed Sparse Modal Optimization.
 
 A from-scratch JAX/XLA rebuild of the capabilities of ``amir-cardiolab/DESMO``
 (interpretable reduced-order modeling of unsteady flows): learnable spatial
@@ -18,7 +18,6 @@ Subpackages
 - ``sparsify``    term-energy norms, threshold sweeps, greedy pruning
 - ``checkpoint``  run checkpoints + PyTorch ``.pt`` import/export (torch-free)
 - ``parallel``    device-mesh sharding of the spatial/temporal axes
-- ``pallas``      fused TPU kernels for the hot reconstruction path
 - ``io``          VTK snapshot readers (pure Python + native-accelerated)
 - ``sr``          post-hoc dynamical-system identification (dz/dt = f(z))
 """

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 GROUP_ORDER = ("coef", "phi", "z", "omega", "period")
+LOSS_METHODS = ("factored", "direct", "naive")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,9 +69,10 @@ class RunConfig:
     seed: int = 42
     log_every: int = 10
     checkpoint_every: int = 2000
-    # --- loss evaluation path: 'auto' = Pallas-fused on TPU, factored Gram
-    # products elsewhere; 'direct' materializes the (n, m) reconstruction ---
-    loss_method: str = "auto"
+    # --- loss evaluation path: 'factored' = Gram products without the (n, m)
+    # reconstruction (losses.factored_mse); 'direct' materializes it like the
+    # reference; 'naive' (ae only) also materializes the auxiliary decode ---
+    loss_method: str = "factored"
     # POD initialization path: 'host' = np.linalg.svd with the reference's
     # exact mode signs (CYL:199-205; required when pairing with imported
     # reference checkpoints); 'snapshots' / 'svd' / 'randomized' run on
@@ -78,25 +80,9 @@ class RunConfig:
     # trips rebuild identical signs. 'randomized' (Halko range finder,
     # O(n*m*k)) is for meshes where even the m x m Gram is too expensive.
     pod_method: str = "host"
-    # scan-unroll factor of the compiled training loop: amortizes the TPU
-    # runtime's per-iteration while-loop overhead (~20 us on v5e); purely a
+    # scan-unroll factor of the compiled training loop; purely a
     # compile-time schedule choice, numerics are unchanged
     scan_unroll: int = 4
-    # compiled-chunk implementation: 'auto' = resident mega-kernel where
-    # supported (desmo variant on TPU; ~1.5x faster, contraction precision
-    # ~4e-6 relative vs the scanned chunk's mixed 4e-6/1e-7), 'scan' forces
-    # the scanned chunk, 'megakernel' requires the mega-kernel
-    chunk_method: str = "auto"
-    # mega-kernel only: compute the Gram of the dictionary (ga) in ONE bf16
-    # MXU pass instead of the hi/lo 3-pass form (~2e-3 relative on ga; the
-    # 3-pass ~5e-6 contract exists for the X-cancellation terms of ax, which
-    # KEEPS all three passes). Measured round 5 (docs/RESULTS.md): -3.7
-    # us/step on cylinder (68.8 -> 65.1, A/B same-window) with full-length
-    # convergence unchanged (err 0.0126 vs 0.0158 baseline, both in POD
-    # bounds); +17-19% steps/s on the MXU-bound presets with errors in POD
-    # bounds at 30k epochs. Default off: the kernel<->scan parity suites pin
-    # the 3-pass numerics; every mega-kernel preset opts in.
-    ga_single_pass: bool = False
     # --- preprocessing (SURVEY §2.2) ---
     scale_inv_sqrt_m: bool = False  # aneurysm runs scale X by 1/sqrt(m)
     time_stride: int = 1  # channel subsamples every 2nd snapshot
@@ -105,8 +91,8 @@ class RunConfig:
     run_greedy_prune: bool = False
     # --- lane-packed multi-seed training (beyond reference; ensemble.py):
     # train n_seeds independently-initialized models simultaneously, packing
-    # their K-term lane axes into the MXU's 128-lane pad (up to
-    # ensemble.max_seeds_packed per compiled group), keep the best by final
+    # their K-term axes side by side (up to ensemble.max_seeds_packed per
+    # compiled group), keep the best by final
     # total loss. 0/1 = off. Seed 0 keeps the exact reference init; later
     # seeds jitter phi by (1 + sigma*N(0,1)) and omega log-uniformly within
     # 10**[-spread, +spread]. desmo variant only.
@@ -116,13 +102,20 @@ class RunConfig:
     # --- hyperparameter multi-start (beyond reference; ensemble.resolve_
     # hypers): value lists whose cartesian product forms a (beta, l1_lambda,
     # lr_scale) combo grid; packed seed s trains under combo s mod #combos —
-    # S hyperparameter settings for ~the cost of one run (beta/lambda ride
-    # per-seed kernel lanes, lr_scale scales each seed's LR row). Empty = off
+    # S hyperparameter settings in one packed run (beta/lambda weight each
+    # seed's own terms, lr_scale scales each seed's LR row). Empty = off
     # (that axis keeps the cfg value). Requires n_seeds > 1; the winning seed
     # is then picked by REC error (totals weight ortho/L1 differently).
     sweep_beta: tuple = ()
     sweep_lam: tuple = ()
     sweep_lr_scale: tuple = ()
+
+    def __post_init__(self):
+        if self.loss_method not in LOSS_METHODS:
+            raise ValueError(
+                f"loss_method={self.loss_method!r} is not supported; choose "
+                f"one of {LOSS_METHODS}"
+            )
 
     @property
     def group_lrs(self) -> tuple[float, ...]:
@@ -152,9 +145,6 @@ CYLINDER = _register(
         num_epochs=100_000,
         patience=1000,
         sched_every=10,
-        # single-pass ga Gram: -3.7 us on this launch/VPU-bound step with
-        # full-length convergence verified equal-quality (round 5)
-        ga_single_pass=True,
     )
 )
 
@@ -175,9 +165,6 @@ ANEURYSM = _register(
         sched_every=1,
         scale_inv_sqrt_m=True,
         dim=3,  # aneurysm keeps 3 components for the magnitude (DESMO_ICA_norm.py:104-127)
-        # round-5 measured: +17% steps/s, err 0.059 vs 0.047 at 30k epochs,
-        # both deep in POD bounds (docs/RESULTS.md "single-pass ga")
-        ga_single_pass=True,
     )
 )
 
@@ -199,8 +186,6 @@ CHANNEL = _register(
         time_stride=2,
         dim=3,  # channel converts 3-component data to magnitude (...py:170-178)
         run_greedy_prune=True,
-        # round-5 measured: +19% steps/s, err in POD bounds (docs/RESULTS.md)
-        ga_single_pass=True,
     )
 )
 
@@ -220,9 +205,6 @@ FOURIER_CYLINDER = _register(
         num_epochs=90_000,
         patience=1000,
         sched_every=10,
-        # round-5 measured: err bit-close (0.1043 vs 0.1063), large
-        # throughput win (docs/RESULTS.md "single-pass ga")
-        ga_single_pass=True,
     )
 )
 
@@ -244,8 +226,6 @@ FOURIER_ANEURYSM = _register(
         sched_every=1,
         scale_inv_sqrt_m=True,
         dim=3,
-        # round-5 measured: +18% steps/s, err 0.12808 vs 0.12816 (docs/RESULTS.md)
-        ga_single_pass=True,
     )
 )
 

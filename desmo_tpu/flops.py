@@ -1,85 +1,41 @@
-"""Per-step FLOP accounting for MFU-grade benchmark reporting.
+"""Per-step FLOP counts derived from shapes, for throughput reporting.
 
-Two numbers per training step:
-
-- ``useful``: the mathematically necessary multiply-adds (x2 FLOPs), at
-  UNPADDED sizes (n, m, K = T + 3r terms), counting each logical contraction
-  ONCE — what a perfect implementation at infinite precision would execute.
-- ``executed``: what the MXU actually runs — padded sizes (128-lane term axis,
-  ``m_pad``/``n_pad`` tiles) times the number of bf16 passes each dot uses
-  (3-pass hi/lo for fp32-grade dots, 2-pass for selection/EMAT dots; see
-  ``pallas/dual_gemm.py`` and ``pallas/train_chunk.py``).
-
-``achieved = executed / time`` measures raw MXU occupancy against the chip
-peak; ``useful / time`` against ``peak / 3`` measures how much of the
-3-pass-effective ceiling reaches useful work — the gap between the two is
-padding + multi-pass overhead, quantified instead of hand-waved.
-
-TPU v5e single-chip peak: 197 TFLOP/s bf16 (the MXU rate every pass runs at,
-regardless of how many passes emulate fp32-grade precision).
+``useful`` is the number of floating-point operations (2 per multiply-add)
+of the contractions one optimizer step needs, at the true sizes (n, m and
+K = T + 3r dictionary terms), each logical contraction counted once.
+Element-wise work (the dictionary build, the trig terms, Adamax) is not
+counted. A rate is ``useful * steps_per_sec``; dividing it by a device's
+peak is left to the benchmark, which knows the device it measured.
 """
 
 from __future__ import annotations
 
 from desmo_tpu import library
 
-V5E_PEAK_TFLOPS = 197.0  # bf16 MXU peak, one v5e chip
 
-_LANES = 128
-
-
-def _round_up(v: int, mult: int) -> int:
-    return (v + mult - 1) // mult * mult
-
-
-def kernel_step_flops(n: int, m: int, r: int, poly_order: int, bt: int = 512) -> dict:
-    """FLOPs of one mega-kernel optimizer step (desmo or fourier variant —
-    the MXU contraction set is identical; the Fourier series build/backprop is
-    VPU work and does not touch these dots).
-
-    Contractions per step (``pallas/train_chunk.py``): once per step
-    ``gb = B B^T`` and ``gB = ga B`` (3-pass); per spatial sweep
-    ``xb = X B^T``, ``A^T [X|A]`` (ax+ga fused), ``aug^T aug`` (all 3-pass)
-    and ``dA = A gb`` (3-pass), plus the 2-pass selection dots ``dl``,
-    ``s_poly`` (EMAT poly backward) and ``dlo`` (delayed phi update).
-    """
+def dictionary_step_flops(n: int, m: int, r: int, poly_order: int) -> dict:
+    """FLOPs of one step of the factored dictionary loss
+    (``losses.factored_mse``), desmo or fourier variant: forward
+    ``ga = A^T A``, ``gb = B B^T`` and ``ax = A^T X``; backward
+    ``dA = (2/nm)(A gb - X B^T)`` and ``dB = (2/nm)(ga B - ax)``. The two X
+    contractions (``ax`` and ``X B^T``) are the only ones of size n*m*K."""
     T = library.num_poly_terms(r, poly_order)
     K = T + 3 * r
-    L = _LANES
-    m_pad = _round_up(m, L)
-    n_pad = _round_up(n, bt)
-    a = r + 1  # useful aug lanes: r latents + bias/mask
-
     useful = 2 * (
-        K * K * m  # gb = B B^T
-        + K * K * m  # gB = ga B
-        + n * m * K  # xb = X B^T
-        + n * K * (m + K)  # A^T [X | A]
-        + n * a * a  # aug^T aug
-        + n * K * K  # dA = A gb
-        + n * (3 * r) * a  # dl: trig grads -> latents
-        + n * T * a  # s_poly: EMAT poly backward
-        + n * a * a  # dlo: delayed phi update
+        n * m * K  # ax = A^T X
+        + n * m * K  # X B^T
+        + n * K * K  # ga = A^T A
+        + n * K * K  # A gb
+        + K * K * m  # gb = B B^T
+        + K * K * m  # ga B
     )
-    executed = 2 * (
-        3 * (L * L * m_pad)  # gb
-        + 3 * (L * L * m_pad)  # gB
-        + 3 * (n_pad * m_pad * L)  # xb
-        + 3 * (n_pad * L * (m_pad + L))  # A^T [X|A]
-        + 3 * (n_pad * L * L)  # aug^T aug
-        + 3 * (n_pad * L * L)  # dA
-        + 2 * (n_pad * L * L)  # dl
-        + 2 * (n_pad * L * L)  # s_poly
-        + 2 * (n_pad * L * L)  # dlo
-    )
-    return {"useful": useful, "executed": executed, "K": K, "K_padded": L}
+    return {"useful": useful, "K": K}
 
 
 def ae_step_flops(n: int, m: int, r: int, poly_order: int, encoder_widths=None) -> dict:
-    """FLOPs of one scanned AE optimizer step: the m->256->...->r encoder and
-    mirrored decoder GEMMs (forward + backward ~ 3x forward), all run at
-    ``Precision.HIGH`` (3-pass bf16), plus the dictionary contraction set on
-    the (n, r) latent (same structure as the kernel's, in XLA)."""
+    """FLOPs of one AE optimizer step: the m->256->...->r encoder and
+    mirrored decoder GEMMs over n rows (forward + backward ~ 3x forward),
+    plus the dictionary contraction set on the (n, r) latent."""
     if encoder_widths is None:
         from desmo_tpu.models.autoencoder import ENCODER_WIDTHS
 
@@ -88,51 +44,12 @@ def ae_step_flops(n: int, m: int, r: int, poly_order: int, encoder_widths=None) 
     per_row = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
     mlp_fwd = 2 * n * per_row * 2  # encoder + mirrored decoder
     mlp = 3 * mlp_fwd  # forward + dL/dW + dL/dx
-
-    T = library.num_poly_terms(r, poly_order)
-    K = T + 3 * r
-    dict_useful = 2 * (2 * K * K * m + n * m * K + n * K * (m + K) + n * K * K)
-    useful = mlp + dict_useful
-
-    # Executed counts at MXU tiling: every GEMM runs at 8-sublane x 128-lane
-    # granularity, so the K=T+3r dictionary dims pad to 128 lanes (~10x for
-    # K=12 at ae_cylinder) and the narrow funnel tail (64/16/8/4/r) pads too;
-    # only the m->256 head is near-aligned. 3 bf16 passes on top
-    # (Precision.HIGH everywhere on the AE path).
-    def _gexec(rows, k, cols):
-        return 2 * _round_up(rows, 8) * _round_up(k, _LANES) * _round_up(cols, _LANES)
-
-    mlp_exec = 3 * 3 * 2 * sum(
-        _gexec(n, a, b) for a, b in zip(widths[:-1], widths[1:])
-    )
-    L = _LANES
-    m_pad = _round_up(m, L)
-    n8 = _round_up(n, 8)
-    dict_exec = 3 * 2 * (
-        2 * L * L * m_pad
-        + n8 * m_pad * L
-        + n8 * L * (m_pad + L)
-        + n8 * L * L
-    )
-    executed = mlp_exec + dict_exec
-    return {"useful": useful, "executed": executed, "K": K, "K_padded": L}
+    dictionary = dictionary_step_flops(n, m, r, poly_order)
+    return {"useful": mlp + dictionary["useful"], "K": dictionary["K"]}
 
 
 def step_flops(cfg) -> dict:
     """Dispatch on preset variant. ``cfg`` is a ``configs`` preset."""
     if cfg.variant == "ae":
         return ae_step_flops(cfg.n, cfg.m, cfg.r, cfg.poly_order)
-    return kernel_step_flops(cfg.n, cfg.m, cfg.r, cfg.poly_order)
-
-
-def mfu(steps_per_s: float, fl: dict) -> dict:
-    """Achieved TFLOP/s + peak fractions for a measured throughput."""
-    useful_tflops = steps_per_s * fl["useful"] / 1e12
-    executed_tflops = steps_per_s * fl["executed"] / 1e12
-    return {
-        "useful_gflops_per_step": round(fl["useful"] / 1e9, 3),
-        "useful_tflops": round(useful_tflops, 2),
-        "executed_tflops": round(executed_tflops, 2),
-        "pct_of_peak": round(100.0 * executed_tflops / V5E_PEAK_TFLOPS, 1),
-        "pct_of_3pass_peak": round(100.0 * useful_tflops / (V5E_PEAK_TFLOPS / 3.0), 1),
-    }
+    return dictionary_step_flops(cfg.n, cfg.m, cfg.r, cfg.poly_order)

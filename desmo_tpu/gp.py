@@ -28,7 +28,7 @@ the same contract natively so `engine='gp'` works everywhere:
   pipeline unchanged.
 
 This is host-side tooling, like the reference's (PySR runs on CPU/Julia
-there) — the TPU compute path is untouched; numpy vectorizes each node op
+there) — the device training path is untouched; numpy vectorizes each node op
 over the (m,) trajectory so a full fit is seconds at reference sizes.
 """
 

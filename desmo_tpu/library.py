@@ -2,8 +2,8 @@
 
 The reference (``DESMO/cylinder_flow/DESMO-Cylinder.py:376-434``, ``POOL_DATA``)
 builds the polynomial library column-by-column with nested Python loops and one
-``torch.cat`` per term — ~35 sequential kernel launches per forward pass. On
-TPU we instead precompute, once at trace time, an integer *factor table*
+``torch.cat`` per term — ~35 sequential kernel launches per forward pass.
+Here we instead precompute, once at trace time, an integer *factor table*
 ``F (num_terms, poly_order)`` indexing into the augmented mode matrix
 ``[1, phi_1, ..., phi_r]``; the whole library is then a single fused
 gather + product that XLA folds into the reconstruction GEMM's prologue.

@@ -19,6 +19,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+X_CONTRACTION_SCOPE = "x_contraction"
+
 
 def mse(recon_nm: jnp.ndarray, x_nm: jnp.ndarray) -> jnp.ndarray:
     """Mean squared error over the full (n, m) snapshot matrix."""
@@ -37,18 +39,22 @@ def factored_mse(
 
     Uses ``||AB||_F^2 = <A^T A, B B^T>`` and ``<AB, X> = <A^T X, B>``: every
     intermediate is (n, K), (K, m) or (K, K) with K = T + 3r ~ 50, so the
-    training step's HBM traffic drops from O(n*m) writes+reads to a single
-    read of X. Autodiff of this expression yields exactly the normal-equation
-    gradients ``2/nm (A B B^T - X B^T)`` / ``2/nm (A^T A B - A^T X)`` — again
-    GEMM-shaped with no (n, m) intermediate. This is the main reason the TPU
-    step is ~memory-speed-of-light rather than recon-materialization-bound.
+    training step's memory traffic drops from O(n*m) writes+reads of the
+    reconstruction to reads of X alone. Autodiff of this expression yields
+    exactly the normal-equation gradients ``2/nm (A B B^T - X B^T)`` /
+    ``2/nm (A^T A B - A^T X)`` — again GEMM-shaped with no (n, m)
+    intermediate; X is read for ``A^T X`` in the forward pass and again for
+    ``X B^T`` in the backward pass.
 
     ``x_sq``: precomputed ``sum(X*X)`` (X is constant across the training
     loop; passing it saves one full read of X per step).
     """
     ga = jnp.dot(a_nk.T, a_nk, precision=precision)  # (K, K)
     gb = jnp.dot(b_km, b_km.T, precision=precision)  # (K, K)
-    ax = jnp.dot(a_nk.T, x_nm, precision=precision)  # (K, m)
+    # the one read of X in the forward pass; autodiff's X B^T inherits the
+    # scope, so a profiler trace finds both X contractions by this name
+    with jax.named_scope(X_CONTRACTION_SCOPE):
+        ax = jnp.dot(a_nk.T, x_nm, precision=precision)  # (K, m)
     if x_sq is None:
         x_sq = jnp.sum(x_nm * x_nm)
     sq = jnp.sum(ga * gb) - 2.0 * jnp.sum(ax * b_km) + x_sq

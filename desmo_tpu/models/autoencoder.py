@@ -158,13 +158,19 @@ def build_warmup_loss(spec: AESpec):
     return loss_fn
 
 
+# Every AE contraction runs at true fp32. The dictionary evaluates
+# sin(omega * latent) with omega up to 1e4 (preset), so a latent rounded to
+# TF32 (10-bit mantissa; what Precision.HIGH gives on GPUs) shifts those
+# arguments by O(1): the loss moves by ~5e-3 relative and the encoder's
+# gradient loses all accuracy (~100% relative error against the float64
+# reference, TF32 emulated at reduced n). The factored AE-MSE also cancels
+# <H^T H, W W^T> against 2<H^T X, W> near convergence, which needs fp32 too.
+_PRECISION = jax.lax.Precision.HIGHEST
+
+
 def _mlp(params: Params, prefix: str, x: jnp.ndarray, n_layers: int) -> jnp.ndarray:
-    # Precision.HIGH (3-pass bf16, ~5e-6 rel — the same fp32-grade budget as
-    # the Pallas kernels' dual_gemm._dot3) instead of HIGHEST (6-pass): the
-    # m->256 encoder and 256->m decoder GEMMs dominate the AE step, and HIGH
-    # measures 702 -> 474 us/step on the TPU (scripts/ae_profile.py).
     for i in range(n_layers):
-        x = jnp.dot(x, params[f"{prefix}_w{i}"], precision=jax.lax.Precision.HIGH)
+        x = jnp.dot(x, params[f"{prefix}_w{i}"], precision=_PRECISION)
         x = x + params[f"{prefix}_b{i}"]
         if i < n_layers - 1:
             x = jax.nn.relu(x)
@@ -258,16 +264,14 @@ def _factored_ae_mse(params: Params, latent: jnp.ndarray, x: jnp.ndarray, batch:
     — the same trick ``losses.factored_mse`` applies to the dictionary
     product (the reference materializes the decode,
     ``DESMO_AE/DESMO_Cylinder_AE-Final.py:859-860``). X is read once
-    (``H^T X``) instead of three times (decode fwd + residual + backward),
-    measured -41 us/step on ae_cylinder (scripts/ae_ablate.py 'aefact').
+    (``H^T X``) instead of three times (decode fwd + residual + backward).
     ``batch['x_colsum']``/``batch['x_sq']`` are used when precomputed
     (``runner.prepare_chunk_batch``) so no extra pass over X runs per step."""
-    HIGH = jax.lax.Precision.HIGH
     n_layers = len(ENCODER_WIDTHS) + 1
     h = latent
     for i in range(n_layers - 1):
         h = jax.nn.relu(
-            jnp.dot(h, params[f"ae_dec_w{i}"], precision=HIGH) + params[f"ae_dec_b{i}"]
+            jnp.dot(h, params[f"ae_dec_w{i}"], precision=_PRECISION) + params[f"ae_dec_b{i}"]
         )
     W = params[f"ae_dec_w{n_layers - 1}"]
     b = params[f"ae_dec_b{n_layers - 1}"]
@@ -278,17 +282,17 @@ def _factored_ae_mse(params: Params, latent: jnp.ndarray, x: jnp.ndarray, batch:
     xcol = batch.get("x_colsum")
     if xcol is None:
         xcol = jnp.sum(x, axis=0)
-    hh = jnp.dot(h.T, h, precision=HIGH)
-    ww = jnp.dot(W, W.T, precision=HIGH)
-    hx = jnp.dot(h.T, x, precision=HIGH)
+    hh = jnp.dot(h.T, h, precision=_PRECISION)
+    ww = jnp.dot(W, W.T, precision=_PRECISION)
+    hx = jnp.dot(h.T, x, precision=_PRECISION)
     sh = jnp.sum(h, axis=0)
     sq = (
         jnp.sum(hh * ww)
         - 2.0 * jnp.sum(hx * W)
         + x_sq
-        + 2.0 * jnp.dot(jnp.dot(sh, W, precision=HIGH), b)
-        - 2.0 * jnp.dot(xcol, b)
-        + n * jnp.dot(b, b)
+        + 2.0 * jnp.dot(jnp.dot(sh, W, precision=_PRECISION), b, precision=_PRECISION)
+        - 2.0 * jnp.dot(xcol, b, precision=_PRECISION)
+        + n * jnp.dot(b, b, precision=_PRECISION)
     )
     return sq / (n * m)
 
@@ -296,10 +300,15 @@ def _factored_ae_mse(params: Params, latent: jnp.ndarray, x: jnp.ndarray, batch:
 def build_loss(spec: AESpec, beta: float, l1_lambda: float, ae_beta: float, method: str = "factored"):
     """total = MSE + beta*ortho + l1_lambda*L1 + ae_beta*MSE(ae_rec, X)
     (``...py:859-871``). ``batch = {'x': X (n, m)[, 'x_sq', 'x_colsum']}``.
-    The AE-MSE term is factored (``_factored_ae_mse``) on the perf paths;
-    ``method='naive'`` keeps the materialized decode for exact-parity runs."""
+    'factored' (default) and 'direct' differ in the dictionary term exactly as
+    in ``desmo.build_loss``; both factor the AE-MSE term (``_factored_ae_mse``).
+    ``method='naive'`` also materializes the decode, for exact-parity runs."""
     from desmo_tpu import losses
 
+    if method not in ("factored", "direct", "naive"):
+        raise ValueError(
+            f"ae loss method {method!r}: use 'factored', 'direct' or 'naive'"
+        )
     factors = spec.factor_table()
     n_layers = len(ENCODER_WIDTHS) + 1
 
@@ -308,16 +317,7 @@ def build_loss(spec: AESpec, beta: float, l1_lambda: float, ae_beta: float, meth
         latent = _mlp(params, "ae_enc", x, n_layers)
         A = _dictionary(params, latent, spec, factors)
         B = desmo_model.temporal_matrix(params)
-        if method == "fused":
-            from desmo_tpu.pallas import factored_mse_fused
-
-            x_sq = batch.get("x_sq")
-            if x_sq is None:
-                x_sq = jnp.sum(x * x)
-            rec = factored_mse_fused(
-                A, B, batch.get("x_padded", x), x_sq, jax.default_backend() != "tpu"
-            )
-        elif method == "factored":
+        if method == "factored":
             rec = losses.factored_mse(A, B, x, batch.get("x_sq"))
         else:
             rec = losses.mse(jnp.dot(A, B, precision=jax.lax.Precision.HIGHEST), x)

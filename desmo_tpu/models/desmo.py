@@ -11,7 +11,7 @@ Reference: the ``DESMO(nn.Module)`` class at
   reference performs on *every* forward (``CYL:538-541``).
 * All per-mode parameter lists become stacked arrays (``phi (r, n)``,
   ``z (T, m)``, ``z_trig (3, r, m)``, ...), so the whole reconstruction is one
-  MXU GEMM ``(n, T+3r) @ (T+3r, m)`` instead of T cats plus 3r small outer
+  GEMM ``(n, T+3r) @ (T+3r, m)`` instead of T cats plus 3r small outer
   products (``CYL:554-572``).
 
 Parameter layout (names used across checkpointing / sharding / sparsify):
@@ -131,9 +131,9 @@ def apply(
     the transpose ``(m, n)`` (``CYL:576``); we keep the snapshot-matrix layout
     (space-major) throughout and transpose only at the loss.
 
-    ``precision=HIGHEST`` forces fp32 MXU passes: with omega ~ 1e4 inside
-    sin/cos, bf16 matmul accumulation visibly perturbs convergence (SURVEY §7
-    "hard parts").
+    ``precision=HIGHEST`` forces true fp32 contractions (no bf16 or TF32
+    operand rounding): with omega ~ 1e4 inside sin/cos, reduced-precision
+    matmuls visibly perturb convergence (SURVEY §7 "hard parts").
     """
     if factors is None:
         factors = spec.factor_table()
@@ -152,37 +152,19 @@ def build_loss(spec: DesmoSpec, beta: float, l1_lambda: float, method: str = "fa
     method='factored' (default) computes the reconstruction MSE through Gram
     products without materializing the (n, m) reconstruction — identical value
     up to fp32 rounding (tested), several times less HBM traffic per step.
-    method='fused' additionally routes the X-touching contractions through the
-    Pallas dual-GEMM kernel (one read of X per step, X-free backward).
     method='direct' materializes the reconstruction like the reference.
     """
-    import jax as _jax
-
     from desmo_tpu import losses
 
+    if method not in ("factored", "direct"):
+        raise ValueError(f"desmo loss method {method!r}: use 'factored' or 'direct'")
     factors = spec.factor_table()
-    interpret = _jax.default_backend() != "tpu"
 
     def loss_fn(params: Params, batch: dict):
-        if method in ("factored", "fused"):
+        if method == "factored":
             A, latent = spatial_dictionary(params, batch["pod_modes"], factors)
             B = temporal_matrix(params)
-            if method == "fused":
-                from desmo_tpu.pallas import factored_mse_fused, factored_mse_fused_split
-
-                x_sq = batch.get("x_sq")
-                if x_sq is None:
-                    x_sq = jnp.sum(batch["x"] * batch["x"])
-                if "x_hi" in batch:  # pre-split bf16 planes (split_snapshots)
-                    rec = factored_mse_fused_split(
-                        A, B, batch["x_hi"], batch["x_lo"], x_sq, interpret
-                    )
-                else:
-                    rec = factored_mse_fused(
-                        A, B, batch.get("x_padded", batch["x"]), x_sq, interpret
-                    )
-            else:
-                rec = losses.factored_mse(A, B, batch["x"], batch.get("x_sq"))
+            rec = losses.factored_mse(A, B, batch["x"], batch.get("x_sq"))
         else:
             recon, latent, _ = apply(params, batch["pod_modes"], spec, factors)
             rec = losses.mse(recon, batch["x"])

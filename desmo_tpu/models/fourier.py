@@ -12,7 +12,7 @@ quirk, step m/(m-1), ``...py:485``). This shrinks temporal parameters from
 O(T*m) to O(T*nF) and makes the model time-continuous (periodic flows only,
 ``README.md:19-20``).
 
-TPU redesign: the reference evaluates the series with an O(nF) Python loop of
+Redesign: the reference evaluates the series with an O(nF) Python loop of
 small tensor ops *per channel per step* (``...py:487-506``) — the reason the
 Fourier variant is *slower* than plain DESMO despite 8x fewer parameters
 (18 vs 28 steps/s, SURVEY §3.2). Here every channel's series is one batched
@@ -41,7 +41,9 @@ import numpy as np
 from desmo_tpu.models import desmo as desmo_model
 
 Params = dict[str, jnp.ndarray]
-
+# the series contractions run at true fp32 like every other contraction of the
+# training loss; without a precision XLA may round their operands to TF32
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +93,8 @@ def fourier_series_batch(
     b = flat[:, 2::2]
     out = (
         a0[:, None]
-        + jnp.einsum("ck,ckm->cm", a, jnp.cos(angle))
-        + jnp.einsum("ck,ckm->cm", b, jnp.sin(angle))
+        + jnp.einsum("ck,ckm->cm", a, jnp.cos(angle), precision=_HIGHEST)
+        + jnp.einsum("ck,ckm->cm", b, jnp.sin(angle), precision=_HIGHEST)
     )
     return out.reshape(*coeffs.shape[:-1], t.shape[0])
 
@@ -177,6 +179,8 @@ def build_loss(spec: FourierSpec, beta: float, l1_lambda: float, method: str = "
     """Same composite objective as plain DESMO (``...py:760-790``)."""
     from desmo_tpu import losses
 
+    if method not in ("factored", "direct"):
+        raise ValueError(f"fourier loss method {method!r}: use 'factored' or 'direct'")
     factors = spec.factor_table()
     t = jnp.asarray(t_points(spec.m))
 
@@ -184,20 +188,7 @@ def build_loss(spec: FourierSpec, beta: float, l1_lambda: float, method: str = "
         A, latent = desmo_model.spatial_dictionary(params, batch["pod_modes"], factors)
         z, z_trig = temporal_values(params, t)
         B = jnp.concatenate([z, z_trig.reshape(-1, z.shape[-1])], axis=0)
-        if method == "fused":
-            from desmo_tpu.pallas import factored_mse_fused
-
-            x_sq = batch.get("x_sq")
-            if x_sq is None:
-                x_sq = jnp.sum(batch["x"] * batch["x"])
-            rec = factored_mse_fused(
-                A,
-                B,
-                batch.get("x_padded", batch["x"]),
-                x_sq,
-                jax.default_backend() != "tpu",
-            )
-        elif method == "factored":
+        if method == "factored":
             rec = losses.factored_mse(A, B, batch["x"], batch.get("x_sq"))
         else:
             rec = losses.mse(jnp.dot(A, B, precision=jax.lax.Precision.HIGHEST), batch["x"])

@@ -2,15 +2,16 @@
 
 The reference is strictly single-process / single-GPU (SURVEY §2 preamble:
 no torch.distributed anywhere; jobs request ``--gres=gpu:1``). Scaling is
-therefore *new capability*, designed TPU-first per SURVEY §5.7-5.8:
+therefore *new capability*, per SURVEY §5.7-5.8:
 
 * The dominant axes are **n** (spatial points — unbounded for larger meshes)
   and **m** (snapshots). We lay them on a 2-D mesh ``('space', 'time')``.
 * Row-sharding the spatial axis makes the reconstruction GEMM
   ``A (n, K) @ B (K, m)`` embarrassingly row-parallel; column-sharding time
   splits the temporal parameters. The only communication XLA needs to insert
-  is ``psum`` over loss/gradient reductions (MSE, Gram matrix, L1) — all
-  riding ICI.
+  is ``psum`` over loss/gradient reductions (MSE, Gram matrix, L1), which
+  XLA lowers to the device interconnect's collectives (NCCL all-reduces
+  over NVLink on a multi-GPU host).
 * Everything goes through ``jax.sharding.NamedSharding`` + jit propagation;
   there is no hand-written collective code to maintain.
 
@@ -93,7 +94,7 @@ def param_shardings(params: dict, mesh: Mesh, m: Optional[int]) -> dict:
 def ensemble_param_shardings(params: dict, mesh: Mesh, m: Optional[int]) -> dict:
     """Shardings for the seed-stacked ensemble params (``ensemble.init_params``:
     every leaf carries a leading seed axis). The seed axis is replicated —
-    seeds live in MXU lanes, not on devices — and each leaf's remaining axes
+    seeds live in the packed term axis, not on devices — and each leaf's remaining axes
     follow the single-seed placement rules (phi rows over 'space', temporal
     coefficients over 'time')."""
     out = {}
@@ -148,11 +149,11 @@ def shard_state(state, mesh: Mesh, m: Optional[int]):
 
 def distributed_init(**kwargs) -> None:
     """Multi-host setup (SURVEY §5.8): thin wrapper over
-    ``jax.distributed.initialize``. On a single TPU pod slice the ICI
-    collectives need no setup; call this only for multi-host (DCN) runs —
-    coordinator address/process counts come from the TPU environment or can be
-    passed explicitly. All sharding in this package then applies unchanged
-    over ``jax.devices()`` spanning hosts."""
+    ``jax.distributed.initialize``. The devices of one host need no setup;
+    call this only for multi-process runs — pass the coordinator address
+    (process 0's ``host:port``), the process count and this process's id, or
+    let a cluster environment JAX detects supply them. All sharding in this
+    package then applies unchanged over ``jax.devices()`` spanning hosts."""
     jax.distributed.initialize(**kwargs)
 
 

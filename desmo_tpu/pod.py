@@ -3,9 +3,9 @@
 The reference runs a *full* LAPACK SVD on the host for every case
 (``DESMO/cylinder_flow/DESMO-Cylinder.py:197-299``, ``POD_analysis``) — O(n*m^2)
 on CPU, the slowest pre-training stage for the 27000x1000 aneurysm case
-(SURVEY §3.1). TPU-native redesign: for tall matrices (n >> m) use the method
+(SURVEY §3.1). Redesign: for tall matrices (n >> m) use the method
 of snapshots — eigendecompose the m x m Gram matrix ``X^T X = V S^2 V^T`` and
-recover ``U = X V / S`` — which is two MXU GEMMs plus a small symmetric
+recover ``U = X V / S`` — which is two device GEMMs plus a small symmetric
 eigensolve, instead of a host round-trip. Results match the reference SVD up
 to per-mode sign, which is absorbed by the learnable phi masks.
 """
@@ -131,7 +131,7 @@ def rank_sweep(x, max_r: int, method: str = "auto") -> list[tuple[int, float]]:
 def _cholesky_qr2(y: jnp.ndarray, precision) -> jnp.ndarray:
     """Orthonormalize the tall sketch Y (n, k) via two rounds of CholeskyQR.
 
-    TPU-native replacement for a tall-skinny QR: each round is one row-parallel
+    Device-friendly replacement for a tall-skinny QR: each round is one row-parallel
     Gram GEMM ``Y^T Y`` (a psum under a 'space'-sharded n axis), one k x k
     Cholesky, and one row-parallel triangular back-substitution applied as a
     GEMM with the k x k inverse — the spatial axis never gathers. One round is
@@ -178,7 +178,7 @@ def randomized_pod(
     O(n m^2) it costs to form — is too expensive (n >> 10^6 or m in the
     thousands; the reference tops out at m=2000, ``CHAN:79``).
 
-    Cost is O(n m k) with k = r + oversample << m, all of it MXU GEMMs:
+    Cost is O(n m k) with k = r + oversample << m, all of it GEMMs:
     sketch ``Y = X @ Omega``, ``n_iter`` power iterations ``Y <- X (X^T Y)``
     (each stabilized by :func:`_cholesky_qr2`), then the small k x m
     ``B = Q^T X`` SVD lifts back through Q. Every tall operation is
@@ -247,7 +247,7 @@ def streaming_randomized_pod(
     """Out-of-core :func:`randomized_pod`: the snapshot matrix X (n, m) is
     never materialized — neither in host RAM nor HBM. Only the (n, k) sketch
     is resident (k = r + oversample); snapshots stream through in column
-    blocks, each contributing three MXU GEMM shapes:
+    blocks, each contributing three GEMM shapes:
 
     * sketch pass:      ``Y += X_b @ Omega_b``         (+ running ||X||_F^2)
     * power pass (x ``n_iter``): ``Y += X_b @ (X_b^T Q)`` — the two GEMMs of

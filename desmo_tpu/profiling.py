@@ -5,8 +5,8 @@ is checkpoint filename timestamps. Here:
 
 * ``trace(logdir)`` — context manager around ``jax.profiler`` emitting a
   TensorBoard-compatible device trace of the training chunk.
-* ``StepTimer`` — throughput bookkeeping with correct synchronization on
-  runtimes where ``block_until_ready`` does not fence (values are fetched).
+* ``StepTimer`` — throughput bookkeeping that waits for the device
+  (``jax.block_until_ready``) before reading the clock.
 * ``debug_nans(enable)`` — toggles JAX's NaN checker, the purity-preserving
   analog of the reference's determinism/sanitizer story (fixed seeds only).
 """
@@ -17,7 +17,6 @@ import contextlib
 import time
 
 import jax
-import numpy as np
 
 
 @contextlib.contextmanager
@@ -34,13 +33,6 @@ def debug_nans(enable: bool = True) -> None:
     jax.config.update("jax_debug_nans", enable)
 
 
-def fence(tree) -> None:
-    """Reliable device fence: fetches one scalar per leaf. On some TPU
-    runtimes ``block_until_ready`` returns before execution completes."""
-    for leaf in jax.tree.leaves(tree):
-        np.asarray(jax.device_get(jax.numpy.ravel(leaf)[0]))
-
-
 class StepTimer:
     """Accumulates (steps, seconds) intervals; reports steps/sec."""
 
@@ -54,7 +46,7 @@ class StepTimer:
 
     def stop(self, steps: int, sync_tree=None) -> None:
         if sync_tree is not None:
-            fence(sync_tree)
+            jax.block_until_ready(sync_tree)
         self.seconds += time.perf_counter() - self._t0
         self.steps += steps
 

@@ -2,11 +2,9 @@
 
 VERDICT r4 weak #5 / next #5: the round-3 hand-tuned recipe point reaches
 err 0.1361 — beats POD(2)=0.2702 but not POD(4)=0.1228. This script runs the
-grid the framework's multi-start machinery cannot lane-pack (the AE MLP is
-not seed-packable — docs/RESULTS.md "AE mega-kernel negative"): sequential
-full-length runs over (ae_beta, warmup epochs, lr scale). Each run is cheap
-on the TPU (~100k epochs at ~2.3k steps/s ≈ 45 s + compile), so a dozen
-points is a coffee-break sweep.
+grid the framework's multi-start machinery cannot pack (the AE MLP is not
+seed-packable): sequential full-length runs over (ae_beta, warmup epochs,
+lr scale), one after another on the accelerator.
 
     python scripts/ae_hyper_sweep.py [--epochs 100000] [--preset ae_cylinder]
 Prints one JSON line per grid point + a final summary line with the winner.
@@ -26,7 +24,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="ae_cylinder")
     ap.add_argument("--epochs", type=int, default=None)
-    ap.add_argument("--out-dir", default="/tmp/desmo_ae_sweep")
+    ap.add_argument("--out-dir", default="runs/ae_sweep")
     ap.add_argument("--ae-betas", default="1,3,10")
     ap.add_argument("--warmups", default="2000,6000,12000")
     ap.add_argument("--lr-scales", default="1")

@@ -16,7 +16,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="cylinder")
     ap.add_argument("--epochs", type=int, default=None)
-    ap.add_argument("--out-dir", default="/tmp/desmo_validate")
+    ap.add_argument("--out-dir", default="runs/validate")
     args = ap.parse_args()
 
     from desmo_tpu import configs, runner

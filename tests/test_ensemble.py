@@ -53,7 +53,7 @@ def test_seed0_is_reference_init():
 def test_packed_loss_matches_per_seed():
     S = 3
     spec, cfg, params, batch = _problem(S)
-    loss = ensemble.build_loss(spec, cfg, S, method="factored")
+    loss = ensemble.build_loss(spec, cfg, S)
     total, mets = loss(params, batch)
     single = desmo.build_loss(spec, cfg.beta, cfg.l1_lambda, method="factored")
     for s in range(S):
@@ -68,7 +68,7 @@ def test_packed_loss_matches_per_seed():
 def test_packed_grad_matches_per_seed():
     S = 3
     spec, cfg, params, batch = _problem(S)
-    loss = ensemble.build_loss(spec, cfg, S, method="factored")
+    loss = ensemble.build_loss(spec, cfg, S)
     single = desmo.build_loss(spec, cfg.beta, cfg.l1_lambda, method="factored")
     g = jax.grad(lambda p: loss(p, batch)[0])(params)
     for s in range(S):
@@ -82,26 +82,38 @@ def test_packed_grad_matches_per_seed():
             )
 
 
-def test_fused_blocks_matches_factored():
-    """The packed Pallas dual-GEMM (interpret mode) must agree with the pure
-    XLA packed loss in per-seed values AND gradients."""
-    from desmo_tpu.pallas import split_snapshots
+@pytest.mark.parametrize("S", [1, 2, 3])
+@pytest.mark.parametrize("variant", ["desmo", "fourier"])
+def test_factored_mse_blocks_matches_direct_per_seed(variant, S):
+    """The packed block MSE equals each seed's materialized
+    mean((A_s B_s - X)^2), computed in float64 NumPy."""
+    from desmo_tpu.models import fourier
 
-    S = 3
-    spec, cfg, params, batch = _problem(S)
-    lf = ensemble.build_loss(spec, cfg, S, method="fused")
-    lx = ensemble.build_loss(spec, cfg, S, method="factored")
-    b2 = dict(batch)
-    b2["x_hi"], b2["x_lo"] = split_snapshots(batch["x"])
-    _, mf = lf(params, b2)
-    _, mx = lx(params, batch)
-    np.testing.assert_allclose(np.asarray(mf["rec"]), np.asarray(mx["rec"]), rtol=5e-4)
-    gf = jax.grad(lambda p: lf(p, b2)[0])(params)
-    gx = jax.grad(lambda p: lx(p, batch)[0])(params)
-    for k in gx:
-        np.testing.assert_allclose(
-            np.asarray(gf[k]), np.asarray(gx[k]), rtol=5e-3, atol=2e-5, err_msg=k
-        )
+    n, m, r, P = 64, 24, 2, 2
+    rng = np.random.default_rng(S)
+    if variant == "fourier":
+        spec = fourier.FourierSpec(n, m, r, P, 2.0, 3, float(m))
+    else:
+        spec = desmo.DesmoSpec(n, m, r, P, omega_init=2.0)
+    params = ensemble.init_params(spec, S, seed=2, phi_sigma=0.2, omega_spread=0.3)
+    pod_modes = jnp.asarray(rng.standard_normal((n, r)) / np.sqrt(n), jnp.float32)
+    x = jnp.asarray(rng.standard_normal((n, m)), jnp.float32)
+    A, _ = ensemble.packed_dictionary(
+        params, pod_modes, spec, ensemble.packed_factor_table(spec, S)
+    )
+    if variant == "fourier":
+        B = ensemble.packed_temporal_fourier(params, jnp.asarray(fourier.t_points(m)))
+    else:
+        B = ensemble.packed_temporal(params)
+    got = np.asarray(ensemble.factored_mse_blocks(A, B, x, None, S))
+    K = A.shape[1] // S
+    a64, b64, x64 = (np.asarray(v, np.float64) for v in (A, B, x))
+    want = [
+        np.mean((a64[:, s * K:(s + 1) * K] @ b64[s * K:(s + 1) * K] - x64) ** 2)
+        for s in range(S)
+    ]
+    assert got.shape == (S,)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 def test_one_step_exact_at_preset_lrs():
@@ -109,7 +121,7 @@ def test_one_step_exact_at_preset_lrs():
     the single-seed trainer bitwise-closely (before chaos can amplify)."""
     S = 3
     spec, cfg, params, batch = _problem(S)
-    loss = ensemble.build_loss(spec, cfg, S, method="factored")
+    loss = ensemble.build_loss(spec, cfg, S)
     groups = desmo.param_groups(desmo.init_params(spec))
     chunk = ensemble.make_ensemble_chunk(loss, groups, cfg, S)
     st = jax.tree.map(jnp.array, ensemble.init_state(params, cfg, S))
@@ -137,7 +149,7 @@ def test_trajectory_parity_tame_lrs():
     scheduler rows must evolve independently and match too)."""
     S = 3
     spec, cfg, params, batch = _problem(S, lr_omega=0.1)
-    loss = ensemble.build_loss(spec, cfg, S, method="factored")
+    loss = ensemble.build_loss(spec, cfg, S)
     groups = desmo.param_groups(desmo.init_params(spec))
     chunk = ensemble.make_ensemble_chunk(loss, groups, cfg, S)
     st = jax.tree.map(jnp.array, ensemble.init_state(params, cfg, S))
@@ -167,7 +179,7 @@ def test_seed_state_resumes_on_single_chunk():
     directly consumable by the standard scanned chunk."""
     S = 2
     spec, cfg, params, batch = _problem(S, lr_omega=0.1)
-    loss = ensemble.build_loss(spec, cfg, S, method="factored")
+    loss = ensemble.build_loss(spec, cfg, S)
     groups = desmo.param_groups(desmo.init_params(spec))
     chunk = ensemble.make_ensemble_chunk(loss, groups, cfg, S)
     st = jax.tree.map(jnp.array, ensemble.init_state(params, cfg, S))
@@ -188,7 +200,7 @@ def test_fit_selects_best_seed():
     cfg = dataclasses.replace(cfg, checkpoint_every=50, log_every=1000)
     result, best, finals = ensemble.fit(
         cfg, spec, batch, n_seeds=S, num_epochs=40, seed=0,
-        phi_sigma=0.1, omega_spread=0.2, method="factored", log=None,
+        phi_sigma=0.1, omega_spread=0.2, log=None,
     )
     assert finals.shape == (S,)
     assert np.isfinite(finals).all()
@@ -211,7 +223,7 @@ def test_fit_recovers_from_diverged_seed():
     msgs = []
     result, best, finals = ensemble.fit(
         cfg, spec, batch, n_seeds=3, num_epochs=20, seed=0,
-        phi_sigma=1e200, omega_spread=0.0, method="factored", log=msgs.append,
+        phi_sigma=1e200, omega_spread=0.0, log=msgs.append,
     )
     assert best == 0
     assert np.isfinite(finals[0])
@@ -233,7 +245,7 @@ def test_fit_raises_when_all_seeds_diverge():
     with pytest.raises(FloatingPointError):
         ensemble.fit(
             cfg, spec, batch, n_seeds=2, num_epochs=20, seed=0,
-            phi_sigma=0.1, method="factored", log=None,
+            phi_sigma=0.1, log=None,
         )
 
 
@@ -245,7 +257,7 @@ def test_fit_checkpoint_fn_called_each_chunk():
     saved = []
     ensemble.fit(
         cfg, spec, batch, n_seeds=2, num_epochs=40, seed=0,
-        phi_sigma=0.1, method="factored", log=None,
+        phi_sigma=0.1, log=None,
         checkpoint_fn=lambda st, ep: saved.append((ep, st)),
     )
     assert [ep for ep, _ in saved] == [10, 20, 30, 40]
@@ -268,7 +280,7 @@ def test_fit_caches_chunk_across_groups(monkeypatch):
     monkeypatch.setattr(ensemble, "make_ensemble_chunk", counting)
     result, best, finals = ensemble.fit(
         cfg, spec, batch, n_seeds=8, num_epochs=20, seed=0,
-        phi_sigma=0.1, method="factored", log=None,
+        phi_sigma=0.1, log=None,
     )
     assert len(builds) == 1
     assert finals.shape == (8,)
@@ -285,7 +297,7 @@ def test_mesh_ensemble_matches_single_device():
 
     S = 3
     spec, cfg, params, batch = _problem(S, lr_omega=0.1)
-    loss = ensemble.build_loss(spec, cfg, S, method="factored")
+    loss = ensemble.build_loss(spec, cfg, S)
     groups = desmo.param_groups(desmo.init_params(spec))
     mesh = make_mesh(n_space=4, n_time=2)
     shardings = parallel.ensemble_param_shardings(params, mesh, cfg.m)
@@ -317,57 +329,6 @@ def test_mesh_ensemble_matches_single_device():
         assert "space" in str(tree["phi"].sharding.spec)
 
 
-def test_select_ensemble_chunk_mesh_policy():
-    """Under a device mesh the kernel form is the SHARDED seed-packed
-    megastep: auto-select declines off-TPU (tests construct it directly),
-    an explicit chunk_method='megakernel' request constructs it when
-    supported and errors (never silently degrades) when not."""
-    import dataclasses as dc
-
-    from desmo_tpu.pallas import train_chunk as tc
-    from desmo_tpu.parallel import make_mesh
-
-    spec, cfg, params, batch = _problem(2)
-    mesh = make_mesh(n_space=4, n_time=2)
-    # auto on a CPU backend: decline (CI constructs the kernel directly)
-    assert tc.select_ensemble_chunk(spec, cfg, 2, device_mesh=mesh) is None
-    # explicit megakernel + supported pack: the sharded seed-packed chunk
-    chunk = tc.select_ensemble_chunk(
-        spec, dc.replace(cfg, chunk_method="megakernel"), 2, device_mesh=mesh
-    )
-    assert chunk is not None
-    # explicit megakernel + unsupported (AE variant): error, don't degrade
-    with pytest.raises(ValueError, match="seed-packed"):
-        tc.select_ensemble_chunk(
-            spec, dc.replace(cfg, chunk_method="megakernel", variant="ae"),
-            2, device_mesh=mesh,
-        )
-
-
-def test_select_ensemble_chunk_mesh_respects_loss_method(monkeypatch):
-    """An explicit non-fused loss_method is a request for the scan path's
-    numerics class; adding a device mesh must not silently override it with
-    the bf16 sharded megakernel (round-4 review fix) — same gate as the
-    single-chip auto branch."""
-    import dataclasses as dc
-
-    import jax
-
-    from desmo_tpu.pallas import train_chunk as tc
-    from desmo_tpu.parallel import make_mesh
-
-    spec, cfg, params, batch = _problem(2)
-    mesh = make_mesh(n_space=4, n_time=2)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert tc.select_ensemble_chunk(spec, cfg, 2, device_mesh=mesh) is not None
-    assert (
-        tc.select_ensemble_chunk(
-            spec, dc.replace(cfg, loss_method="factored"), 2, device_mesh=mesh
-        )
-        is None
-    )
-
-
 def test_fit_recovers_mid_run_divergence(monkeypatch):
     """Divergence in a LATER chunk: fit must roll back to the previous
     (trained) chunk boundary, freeze the originator, re-run the chunk, and
@@ -396,7 +357,7 @@ def test_fit_recovers_mid_run_divergence(monkeypatch):
     msgs = []
     result, best, finals = ensemble.fit(
         cfg, spec, batch, n_seeds=3, num_epochs=40, seed=0,
-        phi_sigma=0.1, method="factored", log=msgs.append,
+        phi_sigma=0.1, log=msgs.append,
     )
     assert any("diverged at epoch 15" in m for m in msgs), msgs
     assert np.isinf(finals[1]) and np.isfinite(finals[0]) and np.isfinite(finals[2])
@@ -406,18 +367,16 @@ def test_fit_recovers_mid_run_divergence(monkeypatch):
     assert np.isfinite(result.history["total"]).all()
 
 
-def test_fit_mesh_kernel_path():
-    """ensemble.fit under a device mesh with chunk_method='megakernel' runs
-    the SHARDED seed-packed megastep end to end (multi-chunk, best-seed
-    selection, single-seed result state)."""
+def test_fit_mesh_multi_chunk():
+    """ensemble.fit under a device mesh runs the sharding-aware packed chunk
+    end to end over several chunks (best-seed selection, single-seed result
+    state)."""
     import dataclasses as dc
 
     from desmo_tpu.parallel import make_mesh
 
     spec, cfg, params, batch = _problem(2, lr_omega=0.1)
-    cfg = dc.replace(
-        cfg, chunk_method="megakernel", checkpoint_every=6, log_every=1000
-    )
+    cfg = dc.replace(cfg, checkpoint_every=6, log_every=1000)
     mesh = make_mesh(n_space=4, n_time=2)
     result, best, finals = ensemble.fit(
         cfg, spec, batch, n_seeds=2, num_epochs=12, seed=0,
@@ -491,7 +450,7 @@ def test_hyper_loss_matches_per_seed_cfg():
     betas = np.array([1e-3, 5e-3, 1e-2], np.float32)
     lams = np.array([1e-4, 1e-5, 1e-3], np.float32)
     loss = ensemble.build_loss(
-        spec, cfg, S, method="factored", betas=betas, lams=lams
+        spec, cfg, S, betas=betas, lams=lams
     )
     _, mets = loss(params, batch)
     for s in range(S):
@@ -515,7 +474,7 @@ def test_hyper_trajectory_matches_single_runs():
     lams = np.array([1e-4, 1e-5, 1e-3], np.float32)
     scales = np.array([1.0, 0.5, 2.0], np.float32)
     loss = ensemble.build_loss(
-        spec, cfg, S, method="factored", betas=betas, lams=lams
+        spec, cfg, S, betas=betas, lams=lams
     )
     groups = desmo.param_groups(desmo.init_params(spec))
     chunk = ensemble.make_ensemble_chunk(loss, groups, cfg, S)
@@ -569,7 +528,7 @@ def test_fit_hyper_sweep_selects_by_rec():
     logs = []
     result, best, finals = ensemble.fit(
         cfg, spec, batch, n_seeds=2, num_epochs=40, seed=0, phi_sigma=0.0,
-        method="factored", log=logs.append, hypers=hypers,
+        log=logs.append, hypers=hypers,
     )
     # seed 1's total carries ~5 * sum|c| of penalty -> far above seed 0's
     assert finals[1] > finals[0]
@@ -590,7 +549,7 @@ def test_fit_resolves_cfg_sweep_and_spans_groups():
     logs = []
     result, best, finals = ensemble.fit(
         cfg, spec, batch, n_seeds=6, num_epochs=20, seed=0, phi_sigma=0.05,
-        method="factored", log=logs.append,
+        log=logs.append,
     )
     assert finals.shape == (6,)
     assert np.isfinite(finals).all()
@@ -632,7 +591,7 @@ def test_fit_report_carries_live_seed_states():
     result, best, finals = ensemble.fit(
         cfg, spec, batch, n_seeds=3, num_epochs=20, seed=0,
         phi_sigma=1e200,  # jittered seeds 1,2 diverge; seed 0 survives
-        method="factored", log=None, report=report,
+        log=None, report=report,
     )
     assert report["live_seeds"] == [0]
     assert len(report["seed_params"]) == 1

@@ -66,7 +66,7 @@ def test_init_params_fourier_periods():
 def test_packed_fourier_loss_matches_per_seed():
     S = 3
     spec, cfg, params, batch = _problem(S)
-    loss = ensemble.build_loss(spec, cfg, S, method="factored")
+    loss = ensemble.build_loss(spec, cfg, S)
     total, mets = loss(params, batch)
     single = fourier.build_loss(spec, cfg.beta, cfg.l1_lambda, method="factored")
     for s in range(S):
@@ -86,7 +86,7 @@ def test_packed_fourier_grad_matches_per_seed():
         spec, S, seed=1, phi_sigma=0.1, omega_spread=0.2,
         periods=[float(spec.m), 19.2, 30.0],
     )
-    loss = ensemble.build_loss(spec, cfg, S, method="factored")
+    loss = ensemble.build_loss(spec, cfg, S)
     single = fourier.build_loss(spec, cfg.beta, cfg.l1_lambda, method="factored")
     g = jax.grad(lambda p: loss(p, batch)[0])(params)
     for s in range(S):
@@ -105,7 +105,7 @@ def test_trajectory_parity_fourier():
     S = 2
     spec, cfg, params, batch = _problem(S, lr_omega=0.1)
     groups = fourier.param_groups(fourier.init_params(spec))
-    loss = ensemble.build_loss(spec, cfg, S, method="factored")
+    loss = ensemble.build_loss(spec, cfg, S)
     chunk = ensemble.make_ensemble_chunk(loss, groups, cfg, S)
     st = jax.tree.map(jnp.array, ensemble.init_state(params, cfg, S))
     st, mets = chunk(st, batch, num_steps=30)
@@ -174,7 +174,7 @@ def test_mesh_fourier_ensemble_matches_single_device():
 
     S = 3
     spec, cfg, params, batch = _problem(S, lr_omega=0.1)
-    loss = ensemble.build_loss(spec, cfg, S, method="factored")
+    loss = ensemble.build_loss(spec, cfg, S)
     groups = fourier.param_groups(fourier.init_params(spec))
     mesh = make_mesh(n_space=4, n_time=2)
     shardings = parallel.ensemble_param_shardings(params, mesh, cfg.m)

@@ -1,37 +1,23 @@
-"""FLOP accounting sanity: the bench's MFU fields must reflect the actual
-contraction set (pallas/train_chunk.py) at the documented padding and pass
-counts, so the useful/executed split stays truthful as the kernel evolves."""
-
-import numpy as np
+"""FLOP accounting: the counts must follow the factored loss' contraction set
+from shapes alone (no padding, no device model)."""
 
 from desmo_tpu import configs, flops, library
 
 
-def test_kernel_flops_cylinder_by_hand():
-    # cylinder: n=3961, m=1001, r=4, P=3 -> T=35, K=47; L=128, m_pad=1024,
-    # n_pad=4096 (bt=512)
-    fl = flops.kernel_step_flops(3961, 1001, 4, 3)
+def test_dictionary_flops_cylinder_by_hand():
+    # cylinder: n=3961, m=1001, r=4, P=3 -> T=35, K=47
+    fl = flops.dictionary_step_flops(3961, 1001, 4, 3)
     assert fl["K"] == 47 and library.num_poly_terms(4, 3) == 35
-    L, mp, np_, n, m, K, a, T = 128, 1024, 4096, 3961, 1001, 47, 5, 35
-    useful = 2 * (
-        2 * K * K * m + n * m * K + n * K * (m + K) + 2 * n * a * a
-        + n * K * K + n * 12 * a + n * T * a
-    )
-    executed = 2 * (
-        6 * L * L * mp + 3 * np_ * mp * L + 3 * np_ * L * (mp + L)
-        + 6 * np_ * L * L + 6 * np_ * L * L
-    )
-    assert fl["useful"] == useful
-    assert fl["executed"] == executed
+    n, m, K = 3961, 1001, 47
+    assert fl["useful"] == 2 * (2 * n * m * K + 2 * n * K * K + 2 * K * K * m)
 
 
-def test_executed_dominated_by_lane_padding_for_small_K():
-    # aneurysm-style K=27: executed/useful ratio must reflect the ~4.7x lane
-    # padding times 3 passes (order 15-20x)
-    fl = flops.kernel_step_flops(27000, 1000, 4, 2)
+def test_x_contractions_dominate_large_cells():
+    # aneurysm: K=27 terms; the two n*m*K X contractions are ~95% of the step
+    fl = flops.dictionary_step_flops(27000, 1000, 4, 2)
     assert fl["K"] == 27
-    ratio = fl["executed"] / fl["useful"]
-    assert 10 < ratio < 25
+    x_part = 2 * 2 * 27000 * 1000 * 27
+    assert 0.9 < x_part / fl["useful"] < 1.0
 
 
 def test_ae_flops_mlp_dominates():
@@ -40,23 +26,21 @@ def test_ae_flops_mlp_dominates():
     # encoder first layer alone: 2*n*m*256 x2 (enc+dec) x3 (fwd+bwd)
     first = 3 * 2 * 2 * cfg.n * cfg.m * 256
     assert fl["useful"] > first  # MLP floor
-    # executed > 3x useful: lane padding on the K=12 dictionary dots (~10x)
-    # and the narrow funnel tail is ON TOP of the 3 bf16 passes
-    assert fl["executed"] > 3 * fl["useful"]
-    assert fl["executed"] < 6 * fl["useful"]  # but bounded: the m->256 head dominates
-    assert fl["K_padded"] == 128
+    dictionary = flops.dictionary_step_flops(cfg.n, cfg.m, cfg.r, cfg.poly_order)
+    assert fl["useful"] > 10 * dictionary["useful"]
 
 
-def test_mfu_fields_consistent():
-    fl = flops.kernel_step_flops(3961, 1001, 4, 3)
-    m = flops.mfu(10000.0, fl)
-    assert np.isclose(m["useful_tflops"], 10000.0 * fl["useful"] / 1e12, rtol=1e-3)
-    assert m["pct_of_peak"] > m["pct_of_3pass_peak"]  # padding waste ordering
-    assert 0 < m["pct_of_peak"] < 100
+def test_flops_linear_in_rows():
+    fl = flops.dictionary_step_flops(1000, 500, 2, 2)
+    one, K = fl["useful"], fl["K"]
+    two = flops.dictionary_step_flops(2000, 500, 2, 2)["useful"]
+    # doubling n doubles every n-sized term; only the K*K*m terms stay fixed
+    assert two - 2 * one == -2 * 2 * K * K * 500
 
 
 def test_all_presets_dispatch():
-    for preset in ("cylinder", "aneurysm", "channel", "fourier_cylinder",
-                   "fourier_aneurysm", "ae_cylinder"):
-        fl = flops.step_flops(configs.get(preset))
-        assert fl["useful"] > 0 and fl["executed"] > fl["useful"]
+    for preset in configs.names():
+        cfg = configs.get(preset)
+        fl = flops.step_flops(cfg)
+        assert fl["useful"] > 0
+        assert fl["K"] == library.num_poly_terms(cfg.r, cfg.poly_order) + 3 * cfg.r
